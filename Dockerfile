@@ -1,5 +1,5 @@
-# Container image for platypus-tpu (CPU by default; install the TPU jax
-# wheel inside a TPU VM for device runs).  Counterpart of the reference's
+# Container image for platypus-tpu (CPU by default; install jax[cuda12] in
+# place of jax[cpu] for a GPU host).  Counterpart of the reference's
 # ubuntu-14.04 + htslib Dockerfile.
 FROM python:3.12-slim
 

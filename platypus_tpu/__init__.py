@@ -1,9 +1,9 @@
-"""platypus-tpu: a TPU-native haplotype-based variant calling framework.
+"""platypus-tpu: a haplotype-based variant caller on JAX, for the GPU.
 
 A from-scratch reimplementation of the capabilities of Platypus
-(andyrimmer/Platypus) designed for JAX/XLA/Pallas on TPU: host-side I/O and
-candidate generation feed fixed-shape batched tensors into device kernels for
-pair alignment, genotype likelihoods and EM haplotype-frequency inference.
+(andyrimmer/Platypus) on JAX/XLA: host-side I/O and candidate
+generation feed fixed-shape batched tensors into device kernels for pair
+alignment, genotype likelihoods and EM haplotype-frequency inference.
 """
 
 __version__ = "0.1.0"

@@ -32,12 +32,11 @@ class PlatypusConfig:
     buffer_size: int = 100_000         # region shard size in bp
     n_cpu: int = 1                     # host-side worker processes
     # JAX platform for calling workers.  "auto" resolves per process model:
-    # the n_cpu<=1 main process keeps the default backend (the TPU when one
+    # the n_cpu<=1 main process keeps the default backend (the GPU when one
     # is attached), while spawned n_cpu>1 workers pin the CPU backend — a
-    # single TPU device cannot be shared efficiently by multiple processes
-    # (measured 16x per-dispatch collapse under two concurrent clients); one
-    # process owns the device, extra workers run the bit-identical CPU
-    # kernels.  An explicit value ("cpu"/"tpu"/"default") applies everywhere.
+    # JAX process reserves most of the card's memory, so one process owns
+    # the device and extra workers run the bit-identical CPU kernels.  An
+    # explicit value ("cpu"/"default") applies everywhere.
     # Device-scale parallelism goes through parallel/ (mesh+jax.distributed).
     worker_platform: str = "auto"
     max_reads: int = 5_000_000         # per-region read cap
@@ -116,24 +115,23 @@ class PlatypusConfig:
     # (reference runner.py:528, variantcaller.pyx:478-487).
     rlen: int = 150
 
-    # ---- TPU-specific knobs (no reference equivalent) ----------------------
-    use_pallas: int = 1                # use the Pallas DP kernel when on TPU
+    # ---- Device knobs (no reference equivalent) ----------------------------
+    # The alignment kernel follows the platform (utils/backend.py): the XLA
+    # scan on the GPU, the native kernel on the CPU.
     # Fused device GL/EM/posterior inference (parallel/batch.py): -1 = auto
-    # (on when the backend is TPU), 0 = host float64 path, 1 = force on.
+    # (on when the device is a GPU), 0 = host float64 path, 1 = force on.
     device_inference: int = -1
     # Device-owner inference service for multi-worker runs
-    # (engine/device_service.py): one spawned process owns the TPU and
+    # (engine/device_service.py): one spawned process owns the GPU and
     # serves fused inference to the nCPU workers.  0 = off, 1 = on.
-    # Opt-in: measured on a 4-core host the per-region EM/posterior work
-    # is smaller than the IPC cost; the hybrid pool (tpu_workers) is the
-    # default way to use the chip.  PLATYPUS_TPU_INFERENCE_SERVICE
-    # overrides.
+    # Opt-in: the hybrid pool (tpu_workers) is the default way to use the
+    # card.  PLATYPUS_TPU_INFERENCE_SERVICE overrides.
     inference_service: int = 0
     # Hybrid worker pool (engine/runner.py): add ONE device-owner worker
     # to the nCPU host workers; it steals whole regions from the shared
-    # queue and calls them end-to-end on the TPU (in-process pipelined
-    # alignment + fused inference).  -1 = auto (on unless the run is
-    # pinned to a non-TPU backend), 0 = off, 1 = force.
+    # queue and calls them end-to-end on the GPU (in-process pipelined
+    # alignment + fused inference).  -1 = auto (on when a GPU plugin is
+    # installed and the run is not pinned to the CPU), 0 = off, 1 = force.
     # PLATYPUS_TPU_HYBRID_WORKER overrides.
     tpu_workers: int = -1
     # Device-mesh calling path (parallel/mesh.mesh_call_region): alignment +

@@ -489,15 +489,9 @@ def _device_inference_enabled(config: PlatypusConfig) -> bool:
         return False
     if config.device_inference == 1:
         return True
-    from ..utils.backend import cpu_pinned
+    from ..utils.backend import device_platform
 
-    if cpu_pinned():
-        # Pinned-cpu process: the answer is known without paying the jax
-        # import (pure-native CPU worker) or an XLA client initialisation.
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"
+    return device_platform() == "gpu"
 
 
 def begin_region_inference(state, config: PlatypusConfig) -> None:
@@ -522,64 +516,48 @@ def begin_region_inference(state, config: PlatypusConfig) -> None:
         from ..parallel.mesh import get_engine_mesh, mesh_call_region
         from .score import run_alignment_requests
 
-        try:
-            mesh = get_engine_mesh(config.mesh_devices)
-            with metrics.timer("device_alignment"):
-                fetch_fn, leftover = mesh_call_region(
-                    state.live, len(buffers), mesh, defer=True)
-        except Exception:  # noqa: BLE001 — fall back to single-device path
-            logger.exception("mesh calling step failed; using dispatch path")
-            fetch_fn = None
-            leftover = state.live
+        mesh = get_engine_mesh(config.mesh_devices)
+        with metrics.timer("device_alignment"):
+            fetch_fn, leftover = mesh_call_region(
+                state.live, len(buffers), mesh, defer=True)
         extra = {}
         if leftover:
             with metrics.timer("device_alignment"):
                 lls = run_alignment_requests([p.request for _, p in leftover])
             extra = {w_idx: ll for (w_idx, _p), ll in zip(leftover, lls)}
-        if fetch_fn is not None:
-            state.mesh_fetch = (fetch_fn, extra)
-            return
-        loglik_by_idx = extra
-    else:
-        with metrics.timer("device_alignment"):
-            logliks = state.pending.finalize()
-        loglik_by_idx = {w_idx: ll
-                         for (w_idx, _p), ll in zip(state.live, logliks)}
+        state.mesh_fetch = (fetch_fn, extra)
+        return
+    with metrics.timer("device_alignment"):
+        logliks = state.pending.finalize()
+    loglik_by_idx = {w_idx: ll for (w_idx, _p), ll in zip(state.live, logliks)}
 
     # Fused device GL/EM/posterior pass over the region's windows (hot loop
-    # #2 on device; host float64 path is the fallback/oracle).  Dispatch
-    # only — the results stay on device until finish_region_call gathers.
+    # #2 on device; the host float64 path is the oracle and the CPU path).
+    # Dispatch only — the results stay on device until finish_region_call
+    # gathers.
     state.loglik_by_idx = loglik_by_idx
     state.inference_by_idx = inference_by_idx
     if not inference_by_idx and _device_inference_enabled(config):
         from ..parallel.batch import dispatch_device_inference
 
-        try:
-            with metrics.timer("device_inference"):
-                state.pending_inference = dispatch_device_inference(
-                    state.live, loglik_by_idx, len(buffers))
-        except Exception:  # noqa: BLE001 — fall back to the host path
-            logger.exception("device inference failed; using host path")
-            state.pending_inference = None
+        with metrics.timer("device_inference"):
+            state.pending_inference = dispatch_device_inference(
+                state.live, loglik_by_idx, len(buffers))
     elif (not inference_by_idx and state.pending_inference is None
           and config.device_inference != 0):
         # Multi-worker runs: this worker has no device, but the parent's
         # device-owner service (engine/device_service.py) may be serving
-        # the fused inference on the real TPU.  Non-blocking submit here;
-        # the response hides behind the next region's host work.
+        # the fused inference on the GPU.  Non-blocking submit here; the
+        # response hides behind the next region's host work.
         from .device_service import get_inference_client
 
         client = get_inference_client()
         if client is not None and client.available():
             from .device_service import dispatch_service_inference
 
-            try:
-                with metrics.timer("device_inference"):
-                    state.pending_inference = dispatch_service_inference(
-                        state.live, loglik_by_idx, len(buffers), client)
-            except Exception:  # noqa: BLE001 — fall back to the host path
-                logger.exception("service inference failed; using host path")
-                state.pending_inference = None
+            with metrics.timer("device_inference"):
+                state.pending_inference = dispatch_service_inference(
+                    state.live, loglik_by_idx, len(buffers), client)
 
 
 def finish_region_call(state, ref_file, config: PlatypusConfig, writer) -> int:
@@ -594,19 +572,8 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer) -> int:
     begin_region_inference(state, config)
     if state.loglik_by_idx is None and state.mesh_fetch is not None:
         fetch_fn, extra = state.mesh_fetch
-        try:
-            with metrics.timer("device_alignment"):
-                loglik_by_idx, inference_by_idx = fetch_fn()
-        except Exception:  # noqa: BLE001 — fall back to the dispatch path
-            logger.exception("mesh fetch failed; using dispatch path")
-            from .score import run_alignment_requests
-
-            with metrics.timer("device_alignment"):
-                lls = run_alignment_requests(
-                    [p.request for _, p in state.live])
-            loglik_by_idx = {w_idx: ll
-                             for (w_idx, _p), ll in zip(state.live, lls)}
-            inference_by_idx = {}
+        with metrics.timer("device_alignment"):
+            loglik_by_idx, inference_by_idx = fetch_fn()
         loglik_by_idx.update(extra)
         state.loglik_by_idx = loglik_by_idx
         state.inference_by_idx = inference_by_idx
@@ -614,12 +581,8 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer) -> int:
     loglik_by_idx = state.loglik_by_idx
     inference_by_idx = state.inference_by_idx or {}
     if state.pending_inference is not None:
-        try:
-            with metrics.timer("device_inference"):
-                inference_by_idx = state.pending_inference.gather()
-        except Exception:  # noqa: BLE001 — fall back to the host path
-            logger.exception("device inference failed; using host path")
-            inference_by_idx = {}
+        with metrics.timer("device_inference"):
+            inference_by_idx = state.pending_inference.gather()
         state.pending_inference = None
 
     # Phase 3 (host): per-window inference + output, in window order.
@@ -720,5 +683,6 @@ def finish_region_call(state, ref_file, config: PlatypusConfig, writer) -> int:
     writer.drain()  # flush the 100-line look-ahead before region handoff
     metrics.timers["region_total"] += __import__("time").perf_counter() - state.region_t0
     if config.verbosity >= 3 or os.environ.get("PLATYPUS_TPU_METRICS"):
-        metrics.log_summary(f"region {chrom}:{start}-{end} cumulative: ")
+        metrics.log_summary(
+            f"[pid {os.getpid()}] region {chrom}:{start}-{end} cumulative: ")
     return n_written

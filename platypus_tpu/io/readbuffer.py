@@ -262,7 +262,7 @@ def _trim_good_reads(reads: ReadSet, idx: np.ndarray, opts: QCOptions) -> None:
 
 class SampleReadBuffer:
     """Per-sample good/bad/broken-mate read piles with window slicing —
-    the TPU-era bamReadBuffer (cwindow.pyx:485-766)."""
+    the device-era bamReadBuffer (cwindow.pyx:485-766)."""
 
     def __init__(
         self,

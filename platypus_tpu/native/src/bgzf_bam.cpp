@@ -2,7 +2,7 @@
 // record decoding into structure-of-arrays batches, plus the in-place read
 // QC trimming loops.
 //
-// This is the TPU-era replacement for the role htslib plays in the
+// This is the device-era replacement for the role htslib plays in the
 // reference caller (/root/reference/src/cython/htslibWrapper.pyx): the
 // Python layer (platypus_tpu/io/bam.py) remains as a pure fallback and as
 // the semantics oracle; this library accelerates the same contract.

@@ -18,8 +18,8 @@ This is the numeric contract of the whole caller (reference
 even/odd-phase gap-open window shifts, the per-step init-mask and the
 padding conventions) so that scores are bit-identical to the reference —
 validated against the compiled reference kernel in
-tests/test_align_goldens.py.  The batched JAX/Pallas kernels in
-align_jax.py / align_pallas.py must agree with this function exactly.
+tests/test_align.py.  The batched kernels (the scans in align_jax.py, the
+native CPU kernel) must agree with this function exactly.
 """
 
 from __future__ import annotations
@@ -246,8 +246,9 @@ def traceback_from_backpointers(
     read: bytes,
 ):
     """Backtrace (align.c:523-577) from a filled backpointer matrix —
-    shared by the scalar DP above and the Pallas traceback kernel (which
-    produces the same words on device).  Returns (aln1, aln2, firstpos)."""
+    shared by the scalar DP above and the traceback scan
+    (align_jax.band_align_traceback_padded, the same words on device).
+    Returns (aln1, aln2, firstpos)."""
     len2 = len(read)
     MATCH, INSERT = 0, 1
     s = minscoreidx

@@ -2,7 +2,7 @@
 
 Mirrors the exact float64 host kernels in ops/likelihood.py (the numeric
 oracle, reference cgenotype.pyx/cpopulation.pyx), restructured for batched
-TPU execution:
+device execution:
 
 * fixed-shape masked tensors: a window batch is [W, Hmax] haplotypes,
   [W, Gmax] genotypes, [W, Rmax] reads, with validity masks — windows of any
@@ -255,12 +255,12 @@ def genotype_gl_gof_jax(loglik, hap1_idx, hap2_idx, sample_onehot):
         same, l1,
         jnp.where(diff >= 3.0, LOG_HALF + mx, jnp.where(diff <= 1e-3, l1, exact)),
     )
-    # Precision.HIGHEST: the TPU MXU's default bf16 inputs quantise each
-    # per-read log-likelihood to ~2 decimal digits (e.g. -24.177 -> -24.125),
-    # which over a 40-read window shifts the genotype GL by ~1 nat and the
-    # emitted QUAL by several phred — far outside the f64-exactness guard's
-    # rounding-band model.  These [G,R]x[R,I] contractions are tiny; the
-    # multi-pass f32 emulation cost is negligible.
+    # Precision.HIGHEST: on the GPU an f32 matrix product may run in TF32
+    # by default, which keeps ~3 decimal digits of each per-read
+    # log-likelihood (e.g. -24.177 -> -24.172); over a 40-read window that
+    # shifts the genotype GL by up to ~1 nat and the emitted QUAL by several
+    # phred — far outside the f64-exactness guard's rounding-band model.
+    # These [G,R]x[R,I] contractions are tiny; full f32 costs nothing.
     gl = jax.lax.dot(per_read, sample_onehot.T.astype(per_read.dtype),
                      precision=jax.lax.Precision.HIGHEST)  # [G, I]
     gof = jax.lax.dot(LOG10E * mx, sample_onehot.T.astype(mx.dtype),
@@ -374,8 +374,8 @@ def variant_posterior_ratio_jax(likelihoods, frequencies, hap_has_variant,
     factor = 1.0 + (hap1_idx != hap2_idx)
     w_var = factor * frequencies[hap1_idx] * frequencies[hap2_idx]
     w_novar = factor * fp[hap1_idx] * fp[hap2_idx]
-    # Precision.HIGHEST: avoid the MXU's default bf16 input quantisation
-    # (see genotype_gl_gof_jax) on the posterior dot products.
+    # Precision.HIGHEST: avoid the GPU's default TF32 input rounding (see
+    # genotype_gl_gof_jax) on the posterior dot products.
     pv = jax.lax.dot(likelihoods, w_var.astype(likelihoods.dtype),
                      precision=jax.lax.Precision.HIGHEST)
     pn = jax.lax.dot(likelihoods, w_novar.astype(likelihoods.dtype),

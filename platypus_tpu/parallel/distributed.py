@@ -1,7 +1,7 @@
-"""Multi-host execution: region sharding across a TPU slice.
+"""Multi-host execution: region sharding across several GPU hosts.
 
 The reference scales with fork()ed share-nothing processes and a temp-file
-merge (runner.py:470-504).  Across a multi-host TPU slice the same
+merge (runner.py:470-504).  Across several hosts the same
 structure maps onto jax.distributed:
 
 * every host calls `initialize()` (coordinator discovery via the standard

@@ -69,6 +69,32 @@ class Metrics:
 # Process-global metrics instance used by the engine.
 GLOBAL_METRICS = Metrics()
 
+# JAX's own trace, lowering and backend-compile durations (a persistent
+# cache hit is timed as a backend compile).  Their sum is the run's
+# compile (set-up) time.
+_COMPILE_EVENTS = frozenset((
+    "/jax/core/compile/jaxpr_trace_duration",
+    "/jax/core/compile/jaxpr_to_mlir_module_duration",
+    "/jax/core/compile/backend_compile_duration",
+))
+_compile_tracking = False
+
+
+def track_compile_time(metrics: Metrics = GLOBAL_METRICS) -> None:
+    """Accumulate JAX compile durations into metrics.timers["compile"]
+    (once per process)."""
+    global _compile_tracking
+    if _compile_tracking:
+        return
+    _compile_tracking = True
+    import jax.monitoring
+
+    def _on_duration(event: str, duration: float, **_kw) -> None:
+        if event in _COMPILE_EVENTS:
+            metrics.timers["compile"] += duration
+
+    jax.monitoring.register_event_duration_secs_listener(_on_duration)
+
 
 @contextlib.contextmanager
 def trace(label: str = "platypus") -> Iterator[None]:

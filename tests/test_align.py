@@ -1,6 +1,6 @@
-"""Alignment kernel tests: scalar core and batched JAX kernel vs the
-checked-in reference goldens (generated by tools/make_align_goldens.py from
-the compiled reference SSE2 kernel)."""
+"""Alignment kernel tests: scalar core, the XLA scan and the native kernel vs
+the checked-in reference goldens (generated by tools/make_align_goldens.py
+from the compiled reference SSE2 kernel)."""
 
 import json
 import os
@@ -79,31 +79,67 @@ def test_exact_match_any_band_offset():
         assert score == 0
 
 
-def test_pallas_kernel_matches_jax_kernel():
-    """Pallas DP kernel (interpret mode on CPU) == XLA scan kernel."""
-    import jax
-    import numpy as np
-
-    from platypus_tpu.ops.align_jax import band_align_padded, pad_alignment_inputs
-    from platypus_tpu.ops.align_pallas import band_align_padded_pallas
-
-    rng = np.random.default_rng(7)
-    B, L2 = 128, 40
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    hap = rng.choice(bases, size=(B, L2 + 15)).astype(np.int32)
+def _random_batch(B, L2, seed, max_len=None):
+    """B random (hap segment, read) pairs of length <= L2 whose reads are
+    copied from the haplotype at a band offset, then mutated; haplotypes
+    carry some 'N'."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+    hap = rng.choice(bases, size=(B, L2 + 15),
+                     p=[0.24, 0.24, 0.24, 0.24, 0.04]).astype(np.int32)
     go = rng.integers(3, 50, size=(B, L2 + 15)).astype(np.int32)
     read = np.zeros((B, L2), np.int32)
     for b in range(B):
         off = rng.integers(0, 8)
         read[b] = hap[b, off : off + L2]
-    mut = rng.integers(0, B, 200), rng.integers(0, L2, 200)
-    read[mut] = rng.choice(bases, 200)
+    read[read == ord("N")] = ord("A")
+    mut = rng.integers(0, B, 3 * B), rng.integers(0, L2, 3 * B)
+    read[mut] = rng.choice(bases[:4], 3 * B)
     qual = rng.integers(0, 60, size=(B, L2)).astype(np.int32)
-    rl = rng.integers(10, L2 + 1, size=B).astype(np.int32)
-    padded = pad_alignment_inputs(hap, go, read, qual, rl)
-    want = np.asarray(band_align_padded(*padded))
-    got = np.asarray(band_align_padded_pallas(*padded))
+    rl = rng.integers(10, (max_len or L2) + 1, size=B).astype(np.int32)
+    return hap, go, read, qual, rl
+
+
+@pytest.mark.parametrize("gapextend,nucprior", [(3, 2), (1, 0), (10, 5)])
+@pytest.mark.parametrize("B", [64, 100])
+@pytest.mark.parametrize("L2", [128, 160])         # 100 bp / 150 bp buckets
+def test_scan_matches_native_kernel(gapextend, nucprior, B, L2):
+    """The XLA scan (the GPU's kernel) == the native CPU kernel across
+    penalties, batch sizes and the two read-length buckets of 100 and
+    150 bp reads, on pairs with 'N' in the haplotype and mixed lengths."""
+    from platypus_tpu.native import native_band_align_pairs
+    from platypus_tpu.ops.align_jax import band_align_padded, pad_alignment_inputs
+
+    hap, go, read, qual, rl = _random_batch(B, L2, seed=B + L2)
+    got = np.asarray(band_align_padded(
+        *pad_alignment_inputs(hap, go, read, qual, rl),
+        gapextend=gapextend, nucprior=nucprior))
+    idx = np.arange(B, dtype=np.int64)
+    want = native_band_align_pairs(
+        hap.astype(np.uint8), go.astype(np.uint8), read.astype(np.uint8),
+        qual.astype(np.uint8), idx, idx, np.zeros(B, np.int64), rl,
+        gapextend, nucprior, 1)
+    if want is None:  # native library unavailable: the scalar oracle
+        want = [band_align_single(hap[b, : rl[b] + 15].astype(np.uint8).tobytes(),
+                                  read[b, : rl[b]].astype(np.uint8).tobytes(),
+                                  qual[b, : rl[b]], gapextend, nucprior,
+                                  go[b, : rl[b] + 15]) for b in range(B)]
+    assert got.shape == (B,)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernels_on_the_card():
+    """The kernel parity phase of chip_smoke.py, on the card."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cuda")
+    env.pop("PLATYPUS_TPU_PLATFORM", None)
+    res = subprocess.run([sys.executable, "chip_smoke.py", "--phase", "kernels"],
+                         cwd=repo, env=env, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
 
 
 def test_traceback_and_flank_score_goldens():
@@ -136,23 +172,22 @@ def test_traceback_and_flank_score_goldens():
         assert flank == c["flank_score"]
 
 
-def test_pallas_traceback_kernel_matches_scalar_oracle():
-    """band_align_traceback_padded_pallas (interpret mode on CPU) must
-    reproduce ops.align_core.band_align_traceback exactly: traceback-mode
-    scores (label bits in the low two bits of every DP cell), the exit
+@pytest.mark.parametrize("L2max,seed", [(48, 1234), (160, 7)])
+def test_traceback_scan_matches_scalar_oracle(L2max, seed):
+    """band_align_traceback_padded must reproduce
+    ops.align_core.band_align_traceback exactly: traceback-mode scores
+    (label bits in the low two bits of every DP cell), the exit
     antidiagonal, and — through unpack_backpointers +
     traceback_from_backpointers — the alignment rows, firstpos and the
     flank penalty (align.c:96-644)."""
-    import jax.numpy as jnp
-
     from platypus_tpu.ops import align_core as ac
-    from platypus_tpu.ops.align_pallas import band_align_traceback_padded_pallas
+    from platypus_tpu.ops.align_jax import (band_align_traceback_padded,
+                                            pad_alignment_inputs)
 
-    rng = np.random.default_rng(1234)
+    rng = np.random.default_rng(seed)
     B = 24
-    L2max = 48
     bases = np.frombuffer(b"ACGTN", np.uint8)
-    haps, reads, quals, gapopens, rlens = [], [], [], [], []
+    haps, reads, quals, gapopens = [], [], [], []
     for k in range(B):
         n = int(rng.integers(10, L2max + 1))
         read = rng.choice(bases[:4], n).astype(np.uint8)
@@ -164,30 +199,22 @@ def test_pallas_traceback_kernel_matches_scalar_oracle():
                 hap[int(rng.integers(0, n + 15))] = rng.choice(bases[:4])
         haps.append(hap)
         reads.append(read)
-        quals.append(rng.integers(5, 40, n).astype(np.int32))
-        gapopens.append(rng.integers(10, 50, n + 15).astype(np.int32))
-        rlens.append(n)
+        quals.append(rng.integers(5, 40, n).astype(np.uint8))
+        gapopens.append(rng.integers(10, 50, n + 15).astype(np.uint8))
 
-    L1max = L2max + 16
-    hap_cols = np.full((L1max, B), ord("N"), np.int32)
-    go_cols = np.zeros((L1max, B), np.int32)
-    read_cols = np.full((L2max + 8, B), ord("0"), np.int32)
-    qual_cols = np.full((L2max + 8, B), 64 * 4, np.int32)
-    rl = np.array(rlens, np.int32)
+    hap_m = np.zeros((B, L2max + 15), np.uint8)
+    go_m = np.zeros((B, L2max + 15), np.uint8)
+    read_m = np.zeros((B, L2max), np.uint8)
+    qual_m = np.zeros((B, L2max), np.uint8)
     for k in range(B):
-        n = rlens[k]
-        hap_cols[: n + 15, k] = haps[k]
-        go_cols[: n + 15, k] = 4 * gapopens[k]
-        go_cols[n + 15:, k] = 4 * gapopens[k][-1]
-        read_cols[:n, k] = reads[k]
-        qual_cols[:n, k] = 4 * quals[k]
-
-    score, idx, bp = band_align_traceback_padded_pallas(
-        jnp.asarray(hap_cols), jnp.asarray(go_cols), jnp.asarray(read_cols),
-        jnp.asarray(qual_cols), jnp.asarray(rl), gapextend=3, nucprior=2)
-    score = np.asarray(score)
-    idx = np.asarray(idx)
-    bp = np.asarray(bp)
+        n = len(reads[k])
+        hap_m[k, : n + 15], go_m[k, : n + 15] = haps[k], gapopens[k]
+        read_m[k, :n], qual_m[k, :n] = reads[k], quals[k]
+    rl = np.array([len(r) for r in reads], np.int32)
+    score, idx, bp = (np.asarray(x) for x in band_align_traceback_padded(
+        *pad_alignment_inputs(hap_m, go_m, read_m, qual_m, rl),
+        gapextend=3, nucprior=2))
+    assert bp.shape == ((L2max + 8) * 8, B)
 
     for k in range(B):
         hb = haps[k].tobytes()

@@ -3,7 +3,7 @@ fallback behaviour and byte-identical output vs the in-worker host path.
 
 The server is forced onto the CPU backend (PLATYPUS_TPU_SERVICE_PLATFORM)
 so the whole request/response path — spawn, submit, pipelined dispatch,
-gather, f64-exactness guard — runs hermetically without TPU hardware.
+gather, f64-exactness guard — runs hermetically without a GPU.
 """
 
 import json
@@ -141,8 +141,8 @@ def test_client_falls_back_when_server_down(tmp_path):
 
 def test_hybrid_pool_byte_identical(tmp_path):
     """Hybrid pool (nCPU host workers + one device worker): with the run
-    pinned to CPU the device worker degrades to one more CPU worker, and
-    output stays byte-identical to the plain pool."""
+    pinned to CPU the forced device worker runs the CPU path, and output
+    stays byte-identical to the plain pool."""
     workdir = str(tmp_path)
     ref_path = _make_dataset(workdir)
     _run_cli(workdir, ref_path, f"{workdir}/plain.vcf",
@@ -221,12 +221,12 @@ def test_device_first_claim_gate():
         dev._sleep = _sleep
 
     # Short queue, fast drain: 6 regions claimed during the 1s settle ->
-    # 4 remaining / 6 rps << 25s estimate -> bow out, zero claims.
+    # 4 remaining / 6 rps << 13s estimate -> bow out, zero claims.
     regions = [("chr20", i * 100, (i + 1) * 100) for i in range(10)]
     host, dev, parent = _mk_sources(regions)
     rig(dev, iter(host), 6)
     assert next(iter(dev), None) is None
-    # Long queue, same drain rate: 994 remaining / 6 rps > 25s -> claim.
+    # Long queue, same drain rate: 994 remaining / 6 rps > 13s -> claim.
     regions2 = [("chr20", i * 100, (i + 1) * 100) for i in range(1000)]
     host2, dev2, _ = _mk_sources(regions2)
     rig(dev2, iter(host2), 6)

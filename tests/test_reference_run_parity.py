@@ -237,8 +237,8 @@ def test_synth_10mb_byte_identical_to_running_reference(tmp_path):
 
 @pytest.mark.skipif(not os.path.exists(S55), reason="reference S55 missing")
 def test_s55_ncpu4_fork_pool_byte_identical(tmp_path):
-    """--nCPU=4 through the CLI (the re-exec'd CPU-pinned path forks its
-    jax-free worker pool) must emit the same bytes as the pinned nCPU=1
+    """--nCPU=4 through the CLI (the CPU-pinned path forks its jax-free
+    worker pool) must emit the same bytes as the pinned nCPU=1
     goldens across the whole S55 corpus."""
     fx = build_s55_full(str(tmp_path))
     out = str(tmp_path / "n4.vcf")

@@ -265,7 +265,7 @@ def test_region_boundary_ownership(tmp_path):
 def test_inference_thread_parity(tmp_path, monkeypatch):
     """Forcing the dedicated inference thread (the device-backend pipeline
     policy) on the CPU backend yields byte-identical output to the inline
-    path — CI has no TPU, so this is the thread path's only exercise."""
+    path — CI has no GPU, so this is the thread path's only exercise."""
     from platypus_tpu.engine.runner import run_single_process
 
     ref_path, ref_seq = make_reference(tmp_path, length=9000, seed=71)

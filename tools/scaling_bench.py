@@ -5,9 +5,10 @@ multi-region dataset, then runs the caller at each requested --nCPU and
 reports throughput and parallel efficiency as one JSON line per point.
 The region-sharded design has zero inter-worker communication (the
 reference's fork model), so efficiency should track core count until BAM
-decode or the single TPU device saturates.
+decode or the device saturates.
 
     python tools/scaling_bench.py --mb 1 --ncpus 1,2,4
+    python tools/scaling_bench.py --mb 10 --build-only   # dataset only
 """
 
 from __future__ import annotations
@@ -78,10 +79,10 @@ def main() -> int:
     ap.add_argument("--platform", default="cpu", choices=["cpu", "default"],
                     help="JAX platform held fixed across all points so the "
                          "efficiency curve is apples-to-apples.  'cpu' is the "
-                         "right choice on a single shared TPU: one device "
-                         "cannot back multiple worker processes (measured 16x "
-                         "dispatch collapse), so host scaling is a CPU-backend "
-                         "property; the TPU point is reported separately.")
+                         "right choice for host scaling: one JAX process per "
+                         "card, so --nCPU workers run on the CPU backend.")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build (or reuse) the dataset and exit")
     ap.add_argument("--workerThreads", type=int, default=0,
                     help="pin PLATYPUS_TPU_WORKER_THREADS (0 = default "
                          "budget). --workerThreads=1 --ncpus=1 measures the "
@@ -104,6 +105,9 @@ def main() -> int:
     # would silently serve a stale dataset of the wrong length.
     args.workdir = os.path.join(args.workdir, f"mb{args.mb:g}")
     info = build_dataset(args.workdir, length)
+    if args.build_only:
+        print(json.dumps(info), flush=True)
+        return 0
     region_arg = f"chr20:1000-{length + 1000}"
 
     # Warm the compile caches once in-process over the FULL region list —
