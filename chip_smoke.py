@@ -12,15 +12,19 @@ One card, in order:
   3. `callVariants --nCPU=1` on the 10 Mb / 30x synthetic set: data lines
      byte-identical to tests/goldens/reference_run/ref_synth_10mb.vcf.gz,
      and every alignment pair and some inference windows on the device;
-  4. `--nCPU=4` (hybrid pool, auto) on the same data: the same bytes;
+  4. `--nCPU=4` (hybrid pool, auto) on the same data: the same bytes, and
+     again with the host workers slowed so the device worker claims
+     regions: the same bytes, and alignment and inference on the card in
+     the device worker;
   5. `--calculateFlankScore=1` on the first 1 Mb: the same bytes as the
      CPU-pinned run of the same command (docs/PARITY.md §15).
 Four cards: `callVariants --meshDevices=4` on the 10 Mb set against the
 golden, which the one-card run reproduces byte for byte.
 
-The parent never imports jax: each GPU phase is a child process, one at a
-time, so only one process holds the card.  CPU work (the dataset build, the
-CPU-pinned twin of phase 5) runs beside them pinned to the CPU.  Without a
+The parent never imports jax: each phase is a child process, one at a
+time, so only one process holds the card and no phase shares the host with
+another.  The dataset build and the twin of phase 5 are pinned to the CPU.
+Wall times here are a smoke's; throughput comes from `bench.py e2e`.  Without a
 GPU, or outside the repository, the script exits non-zero and prints no
 result.  A failed phase prints {"ok": false, ...} and exits non-zero.  The
 last line of a passing run is
@@ -47,6 +51,21 @@ REGION_10MB = "chr20:1-10000001"
 REGION_1MB = "chr20:1-1000001"
 GPU_ENV = dict(os.environ, JAX_PLATFORMS="cuda")
 CPU_ENV = dict(os.environ, JAX_PLATFORMS="cpu", PLATYPUS_TPU_PLATFORM="cpu")
+# The 10 Mb runs.  At --nCPU=4 the host workers drain the set in ~5 s, before
+# the device worker has started, so the pool's own rule rightly leaves the
+# card idle (ncpu4).  ncpu4_device slows each host region by 1 s and
+# opens the device worker's first claim, so the same data lasts long enough
+# for the device worker to claim regions and call them on the card.
+HYBRID_RUNS = (
+    ("ncpu1", ["--nCPU=1"], GPU_ENV),
+    ("ncpu4", ["--nCPU=4"], GPU_ENV),
+    ("ncpu4_device", ["--nCPU=4"],
+     dict(GPU_ENV, PLATYPUS_TPU_DEVICE_SETTLE="0",
+          PLATYPUS_TPU_TEST_HOST_DELAY="1.0")),
+)
+DEVICE_METRICS = ("alignment_pairs", "device_alignment_pairs",
+                  "device_alignment", "device_inference",
+                  "device_inference_windows")
 
 
 class PhaseFailed(Exception):
@@ -221,85 +240,94 @@ def run_call(name: str, out: str, region: str, *extra: str,
             metrics[k] = metrics.get(k, 0.0) + float(v)
     hybrid = re.search(r"hybrid pool: (\d+) regions by host workers, (\d+) "
                        r"by the device worker, (\d+) rescued", text)
+    device = re.search(r"device worker pid (\d+) holds", text)
+    device_metrics: dict = {}
+    if device and device.group(1) in last:
+        for k, v in re.findall(r"(\S+?)=([0-9.]+)s?(?=\s|$)",
+                               last[device.group(1)]):
+            device_metrics[k] = float(v)
     return {"wall_s": wall, "metrics": metrics, "log": text,
-            "claims": ([int(x) for x in hybrid.groups()] if hybrid else None)}
+            "claims": ([int(x) for x in hybrid.groups()] if hybrid else None),
+            "device_pid": device.group(1) if device else None,
+            "device_metrics": device_metrics}
+
+
+def build_dataset() -> int:
+    """Build (or reuse) the 10 Mb set on the CPU; returns its read count."""
+    t0 = time.perf_counter()
+    build = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "scaling_bench.py"),
+         "--build-only", "--mb", "10", "--workdir", DATA],
+        cwd=REPO, env=CPU_ENV, capture_output=True, text=True)
+    check(build.returncode == 0, f"dataset build failed: "
+          f"{(build.stdout + build.stderr)[-3000:]}")
+    n_reads = json.loads(build.stdout.strip().splitlines()[-1])["n_reads"]
+    emit({"phase": "dataset", "n_reads": n_reads,
+          "ready_after_s": time.perf_counter() - t0})
+    return n_reads
 
 
 def one_card() -> dict:
+    """The one-card phases, one at a time: the times they print are taken
+    with no other phase on the host."""
     os.makedirs(OUT, exist_ok=True)
-    procs = []
-    try:
-        build = subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tools", "scaling_bench.py"),
-             "--build-only", "--mb", "10", "--workdir", DATA],
-            cwd=REPO, env=CPU_ENV, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        procs.append(build)
-        t0 = time.perf_counter()
-        kern = child("kernels")
-        emit(kern)
-        out, _ = build.communicate()
-        check(build.returncode == 0, f"dataset build failed: {out[-3000:]}")
-        info = json.loads(out.strip().splitlines()[-1])
-        emit({"phase": "dataset", "n_reads": info["n_reads"],
-              "ready_after_s": time.perf_counter() - t0})
+    kern = child("kernels")
+    emit(kern)
 
-        # The CPU-pinned twin of phase 5 runs beside the GPU phases.
-        flank_cpu = os.path.join(OUT, "flank_cpu.vcf")
-        twin = subprocess.Popen(
-            call_args(flank_cpu, REGION_1MB, "--calculateFlankScore=1",
-                      "--verbosity=1"),
-            cwd=REPO, env=CPU_ENV, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True)
-        procs.append(twin)
+    n_reads = build_dataset()
 
-        golden = data_lines(os.path.join(GOLDENS, "reference_run",
-                                         "ref_synth_10mb.vcf.gz"))
-        n_reads = info["n_reads"]
-        for name, extra in (("ncpu1", ["--nCPU=1"]), ("ncpu4", ["--nCPU=4"])):
-            vcf = os.path.join(OUT, f"{name}.vcf")
-            r = run_call(name, vcf, REGION_10MB, *extra)
-            m = r["metrics"]
-            row = {"phase": name, "wall_s": r["wall_s"],
-                   "reads_per_s": n_reads / r["wall_s"],
-                   "compile_s": m.get("compile", 0.0),
-                   "first_region_s": _first_region_s(r["log"]),
-                   "identical_to_golden": data_lines(vcf) == golden,
-                   "alignment_pairs": m.get("alignment_pairs", 0),
-                   "device_alignment_pairs": m.get("device_alignment_pairs", 0),
-                   "device_alignment_s": m.get("device_alignment", 0.0),
-                   "device_inference_s": m.get("device_inference", 0.0),
-                   "device_inference_windows": m.get("device_inference_windows", 0)}
-            if r["claims"] is not None:
-                row["claims_host_device_rescued"] = r["claims"]
-            emit(row)
-            check(row["identical_to_golden"], f"{name}: data lines differ "
-                  "from ref_synth_10mb.vcf.gz")
-            if name == "ncpu1":
-                check(row["alignment_pairs"] > 0
-                      and row["device_alignment_pairs"] == row["alignment_pairs"],
-                      "ncpu1: not every alignment pair ran on the device")
-                check(row["device_alignment_s"] > 0
-                      and row["device_inference_s"] > 0
-                      and row["device_inference_windows"] > 0,
-                      "ncpu1: device alignment or inference did not run")
+    golden = data_lines(os.path.join(GOLDENS, "reference_run",
+                                     "ref_synth_10mb.vcf.gz"))
+    for name, extra, env in HYBRID_RUNS:
+        vcf = os.path.join(OUT, f"{name}.vcf")
+        r = run_call(name, vcf, REGION_10MB, *extra, env=env)
+        m = r["metrics"]
+        row = {"phase": name, "wall_s": r["wall_s"],
+               "reads_per_s": n_reads / r["wall_s"],
+               "compile_s": m.get("compile", 0.0),
+               "first_region_s": _first_region_s(r["log"]),
+               "identical_to_golden": data_lines(vcf) == golden,
+               **{k: m.get(k, 0.0) for k in DEVICE_METRICS}}
+        if r["claims"] is not None:
+            row["claims_host_device_rescued"] = r["claims"]
+        if r["device_pid"] is not None:
+            row["device_worker"] = {k: r["device_metrics"].get(k, 0.0)
+                                    for k in DEVICE_METRICS}
+        emit(row)
+        check(row["identical_to_golden"], f"{name}: data lines differ "
+              "from ref_synth_10mb.vcf.gz")
+        if name == "ncpu1":
+            check(row["alignment_pairs"] > 0
+                  and row["device_alignment_pairs"] == row["alignment_pairs"],
+                  "ncpu1: not every alignment pair ran on the device")
+            check(row["device_alignment"] > 0
+                  and row["device_inference"] > 0
+                  and row["device_inference_windows"] > 0,
+                  "ncpu1: device alignment or inference did not run")
+        if name == "ncpu4_device":
+            dev = row.get("device_worker", {})
+            check(r["claims"] is not None and r["claims"][1] > 0,
+                  f"{name}: the device worker claimed no region")
+            check(dev.get("device_alignment_pairs", 0) > 0
+                  and dev.get("device_inference_windows", 0) > 0,
+                  f"{name}: the device worker ran no alignment or "
+                  "inference on the card")
 
-        flank_gpu = os.path.join(OUT, "flank_gpu.vcf")
-        r = run_call("flank_gpu", flank_gpu, REGION_1MB,
-                     "--calculateFlankScore=1")
-        _, err = twin.communicate()
-        check(twin.returncode == 0, f"CPU-pinned flank run failed: {err[-3000:]}")
-        same = data_lines(flank_gpu) == data_lines(flank_cpu)
-        emit({"phase": "flank", "wall_s": r["wall_s"],
-              "records": len(data_lines(flank_gpu)),
-              "identical_to_cpu_pinned": same})
-        check(same, "flank: GPU and CPU-pinned data lines differ")
-        return kern["device"]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    flank_gpu = os.path.join(OUT, "flank_gpu.vcf")
+    r = run_call("flank_gpu", flank_gpu, REGION_1MB,
+                 "--calculateFlankScore=1")
+    # The CPU-pinned twin: the same command on the CPU, with one host
+    # worker per region (the output does not depend on --nCPU).
+    flank_cpu = os.path.join(OUT, "flank_cpu.vcf")
+    twin = run_call("flank_cpu", flank_cpu, REGION_1MB,
+                    "--calculateFlankScore=1", "--nCPU=10", env=CPU_ENV)
+    same = data_lines(flank_gpu) == data_lines(flank_cpu)
+    emit({"phase": "flank", "wall_s": r["wall_s"],
+          "cpu_twin_wall_s": twin["wall_s"],
+          "records": len(data_lines(flank_gpu)),
+          "identical_to_cpu_pinned": same})
+    check(same, "flank: GPU and CPU-pinned data lines differ")
+    return kern["device"]
 
 
 def _first_region_s(log: str) -> float:
@@ -311,11 +339,7 @@ def four_cards() -> dict:
     os.makedirs(OUT, exist_ok=True)
     device = child("device")["device"]
     check(device["count"] >= 4, f"four cards wanted, JAX reports {device}")
-    out, _ = subprocess.Popen(
-        [sys.executable, os.path.join(REPO, "tools", "scaling_bench.py"),
-         "--build-only", "--mb", "10", "--workdir", DATA],
-        cwd=REPO, env=CPU_ENV, stdout=subprocess.PIPE, text=True).communicate()
-    n_reads = json.loads(out.strip().splitlines()[-1])["n_reads"]
+    n_reads = build_dataset()
     vcf = os.path.join(OUT, "mesh4.vcf")
     r = run_call("mesh4", vcf, REGION_10MB, "--nCPU=1", "--meshDevices=4")
     golden = data_lines(os.path.join(GOLDENS, "reference_run",

@@ -614,11 +614,16 @@ def _worker_entry(args):
     setup_logging(config, continuing=True)
 
     # Test hooks: make the device worker artificially slow per region (the
-    # rescue protocol fires deterministically without a slow device),
-    # or crash it outright after claiming (the run must complete via
-    # rescue).  tests/test_device_service.py.
+    # rescue protocol fires deterministically without a slow device), make
+    # the host workers slow per region (a short dataset then lasts long
+    # enough for the device worker to start and claim: chip_smoke.py), or
+    # crash the device worker outright after claiming (the run must fail).
+    # tests/test_device_service.py.
     delay = float(os.environ.get("PLATYPUS_TPU_TEST_DEVICE_DELAY", "0") or 0)
     if delay and platform_override is not None:
+        regions = _delayed_regions(regions, delay)
+    delay = float(os.environ.get("PLATYPUS_TPU_TEST_HOST_DELAY", "0") or 0)
+    if delay and platform_override is None:
         regions = _delayed_regions(regions, delay)
     if (platform_override is not None
             and os.environ.get("PLATYPUS_TPU_TEST_DEVICE_CRASH")):
@@ -649,6 +654,10 @@ def _worker_entry(args):
 
         if device_platform() != "gpu":
             raise RuntimeError("device worker found no GPU")
+        import jax
+
+        logger.info("device worker pid %d holds %s", os.getpid(),
+                    jax.devices()[0].device_kind)
 
     on_done = source.mark_done if source is not None else None
     n = run_single_process(config, regions, path, on_region_done=on_done)
@@ -680,10 +689,11 @@ def _delayed_regions(regions, delay: float):
 
 
 def _crash_after_first_claim(regions):
-    """Test hook: claim one region, then die hard (os._exit skips crash
-    containment) — the parent must treat the rescued run as complete."""
+    """Test hook: claim one region, then die hard (os._exit skips every
+    handler) — the parent must stop the run and name the device worker."""
     for _region in regions:
         os._exit(17)
+    yield from ()  # a generator, even when the device claims nothing
 
 
 def _chrom_sort_key(chrom: str):
@@ -913,12 +923,33 @@ def run_variant_caller(config: PlatypusConfig, regions: Optional[List[Region]] =
                 pass
     terminated_stragglers: List[int] = []
     terminate_deadline: Dict[int, float] = {}
+
+    def died_on_their_own() -> List[int]:
+        return [i for i, p in enumerate(workers)
+                if p.exitcode not in (None, 0)
+                and i not in terminated_stragglers]
+
+    failed: List[int] = []
     try:
         while any(p.is_alive() for p in workers):
             for p in workers:
                 p.join(timeout=0.5)
             if service is not None:
                 service.check_alive()  # a dead server must not hang workers
+            failed = died_on_their_own()
+            if failed:
+                # A worker that dies on its own fails the run at once: a
+                # host worker's claimed regions are gone, and a device
+                # worker's death is a device failure, which no host run
+                # may stand in for.
+                for p in workers:
+                    if p.is_alive():
+                        p.terminate()
+                for p in workers:
+                    p.join(timeout=15.0)
+                    if p.is_alive():
+                        p.kill()
+                break
             import time as _time
 
             for i, deadline in list(terminate_deadline.items()):
@@ -949,6 +980,7 @@ def run_variant_caller(config: PlatypusConfig, regions: Optional[List[Region]] =
                                                  .monotonic() + 15.0)
         for p in workers:
             p.join()
+        failed = failed or died_on_their_own()
     except KeyboardInterrupt:
         for p in workers:
             p.terminate()
@@ -957,27 +989,17 @@ def run_variant_caller(config: PlatypusConfig, regions: Optional[List[Region]] =
         raise
     if service is not None:
         service.stop()
-    failed = [i for i, p in enumerate(workers)
-              if p.exitcode != 0 and i not in terminated_stragglers]
-    if failed and all(i >= n_host for i in failed) and parent_source.all_done():
-        # A device worker that crashed on its own (OOM kill, runtime
-        # failure) is survivable as long as every region is durable — its
-        # claimed-but-unfinished regions were rescued by the hosts.  Only
-        # a HOST worker's death can leave holes.
-        logger.error("Device worker(s) %s exited with %s; all regions "
-                     "completed via rescue — continuing to merge",
-                     failed, [workers[i].exitcode for i in failed])
-        failed = []
     if failed:
-        # A dead worker's claimed regions are simply gone — merging the
-        # survivors would silently emit a VCF with holes (the reference's
-        # Pool-less fork model had the same blind spot; its Pool-era
-        # ancestor re-raised).  Leave the temp files for post-mortem.
+        # Merging the survivors would emit a VCF with holes, or one the
+        # device never finished (the reference's Pool-less fork model had
+        # the same blind spot; its Pool-era ancestor re-raised).  Leave the
+        # temp files for post-mortem.
+        kinds = ["device worker" if i >= n_host else "host worker"
+                 for i in failed]
         raise RuntimeError(
-            f"worker process(es) {failed} exited with "
-            f"{[workers[i].exitcode for i in failed]}; output would be "
-            f"incomplete. Temp files kept: {[temp_files[i] for i in failed]}"
-        )
+            f"{', '.join(kinds)} {failed} exited with "
+            f"{[workers[i].exitcode for i in failed]}; the run stops. "
+            f"Temp files kept: {temp_files}")
     for i in terminated_stragglers:
         # SIGTERM can land before the worker's entry hook touches its temp
         # file (spawn + JAX init take seconds); the merge needs it present.

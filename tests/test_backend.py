@@ -132,6 +132,22 @@ def test_mesh_puts_devices_on_windows(n):
     assert (mesh.shape["win"], mesh.shape["lane"]) == (n, 1)
 
 
+@pytest.mark.parametrize("n,lane,win", [(8, 2, 4), (4, 2, 2), (6, 3, 2),
+                                        (8, 8, 1)])
+def test_mesh_lane_axis_shards_reads(n, lane, win):
+    from platypus_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, lane=lane)
+    assert (mesh.shape["win"], mesh.shape["lane"]) == (win, lane)
+
+
+def test_mesh_lane_must_divide_devices():
+    from platypus_tpu.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError):
+        make_mesh(6, lane=4)
+
+
 @pytest.mark.parametrize("env_dir", [True, False])
 def test_compile_cache_placement(tmp_path, env_dir):
     """JAX_COMPILATION_CACHE_DIR wins and the code sets no other directory;

@@ -1,5 +1,6 @@
-"""Device-owner inference service (engine/device_service.py): protocol,
-fallback behaviour and byte-identical output vs the in-worker host path.
+"""Device-owner inference service (engine/device_service.py) and the hybrid
+pool (engine/runner.py): protocol, rescue of a slow device worker, failure
+of a dead one, and byte-identical output vs the in-worker host path.
 
 The server is forced onto the CPU backend (PLATYPUS_TPU_SERVICE_PLATFORM)
 so the whole request/response path — spawn, submit, pipelined dispatch,
@@ -30,7 +31,8 @@ def _make_dataset(workdir, length=30000, seed=7):
     return ref_path
 
 
-def _run_cli(workdir, ref_path, out, extra_env, extra_args=()):
+def _run_cli(workdir, ref_path, out, extra_env, extra_args=(), drop_env=(),
+             expect_ok=True):
     """Run callVariants in a subprocess so env vars take effect before jax
     and the spawned workers/service inherit them."""
     import subprocess
@@ -38,12 +40,16 @@ def _run_cli(workdir, ref_path, out, extra_env, extra_args=()):
 
     env = dict(os.environ)
     env.update(extra_env)
+    for name in drop_env:
+        env.pop(name, None)
     cmd = [sys.executable, "-m", "platypus_tpu.cli", "callVariants",
            f"--bamFiles={workdir}/reads.bam", f"--refFile={ref_path}",
            "--regions=chr20:1000-29000", "-o", out, *extra_args]
     res = subprocess.run(cmd, env=env, capture_output=True, text=True,
                          timeout=500)
-    assert res.returncode == 0, res.stderr[-3000:]
+    if expect_ok:
+        assert res.returncode == 0, res.stderr[-3000:]
+    return res
 
 
 def _data_lines(path):
@@ -318,22 +324,41 @@ def test_hybrid_straggler_rescued(tmp_path):
 
 
 def test_hybrid_device_crash_rescued(tmp_path):
-    """A device worker that dies HARD after claiming (os._exit — no crash
-    containment, no SIGTERM handler) must not abort or corrupt the run:
-    hosts rescue its region and the merged output equals the plain pool."""
+    """A device worker that dies HARD after claiming (os._exit — no handler
+    runs) is a device failure: the parent stops the pool at once, names the
+    device worker and its exit code, and writes no merged VCF — the host
+    workers' rescue does not stand in for the device.  Slow host workers
+    leave regions for the device worker to claim."""
     workdir = str(tmp_path)
     ref_path = _make_dataset(workdir)
-    _run_cli(workdir, ref_path, f"{workdir}/plain.vcf",
-             {"PLATYPUS_TPU_PLATFORM": "cpu",
-              "PLATYPUS_TPU_HYBRID_WORKER": "0"},
-             ("--nCPU=2", "--bufferSize=6000"))
-    _run_cli(workdir, ref_path, f"{workdir}/crash.vcf",
-             {"PLATYPUS_TPU_PLATFORM": "cpu",
-              "PLATYPUS_TPU_HYBRID_WORKER": "1",
-              "PLATYPUS_TPU_TEST_DEVICE_CRASH": "1",
-              "PLATYPUS_TPU_DEVICE_SETTLE": "0"},
-             ("--nCPU=2", "--bufferSize=6000"))
-    plain = _data_lines(f"{workdir}/plain.vcf")
-    crashed = _data_lines(f"{workdir}/crash.vcf")
-    assert len(plain) > 0
-    assert plain == crashed
+    res = _run_cli(workdir, ref_path, f"{workdir}/crash.vcf",
+                   {"PLATYPUS_TPU_PLATFORM": "cpu",
+                    "PLATYPUS_TPU_HYBRID_WORKER": "1",
+                    "PLATYPUS_TPU_TEST_DEVICE_CRASH": "1",
+                    "PLATYPUS_TPU_TEST_HOST_DELAY": "5",
+                    "PLATYPUS_TPU_DEVICE_SETTLE": "0"},
+                   ("--nCPU=2", "--bufferSize=6000"), expect_ok=False)
+    assert res.returncode != 0
+    assert "device worker [2] exited with [17]" in res.stderr
+    assert not os.path.exists(f"{workdir}/crash.vcf")
+
+
+def test_hybrid_device_worker_without_gpu_fails(tmp_path):
+    """A device worker that is not pinned to the CPU and finds no GPU stops
+    before its first claim, and the CLI exits non-zero: the hybrid pool
+    never turns into a quiet CPU run.  CUDA_VISIBLE_DEVICES hides any card
+    on the host running the test; slow host workers keep the run open until
+    the device worker has looked for its GPU."""
+    workdir = str(tmp_path)
+    ref_path = _make_dataset(workdir)
+    res = _run_cli(workdir, ref_path, f"{workdir}/nogpu.vcf",
+                   {"PLATYPUS_TPU_HYBRID_WORKER": "1",
+                    "PLATYPUS_TPU_DEVICE_SETTLE": "0",
+                    "PLATYPUS_TPU_TEST_HOST_DELAY": "5",
+                    "CUDA_VISIBLE_DEVICES": ""},
+                   ("--nCPU=2", "--bufferSize=6000"),
+                   drop_env=("PLATYPUS_TPU_PLATFORM", "JAX_PLATFORMS"),
+                   expect_ok=False)
+    assert res.returncode != 0
+    assert "device worker [2] exited with [1]" in res.stderr
+    assert not os.path.exists(f"{workdir}/nogpu.vcf")

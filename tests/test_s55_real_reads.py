@@ -148,7 +148,7 @@ def test_s55_mesh_posterior_parity(s55_local):
                zip(state.live, state.pending.finalize())}
 
     ll_by, inf_by, leftover = mesh_call_region(state.live, len(samples),
-                                               make_mesh(8))
+                                               make_mesh(8, lane=2))
     assert ll_by, "no window went through the mesh"
     n_checked = 0
     for w_idx, prep in state.live:
